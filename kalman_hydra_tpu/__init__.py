@@ -1,9 +1,9 @@
-"""kalman_hydra_tpu — TPU-native rebuild of the kalman-hydra tracking pipeline.
+"""kalman_hydra_tpu — JAX rebuild of the kalman-hydra tracking pipeline.
 
-From-scratch JAX/XLA/Pallas framework with the capabilities of
+From-scratch JAX/XLA framework with the capabilities of
 `hydradarpa/kalman-hydra` (BASELINE.json north star): video -> dense optical
 flow (pyramidal LK / Farneback) -> batched EKF point tracks -> RTS smoothing
--> trajectory export, HBM-resident end to end.
+-> trajectory export, device-resident end to end.
 """
 
 __version__ = "0.1.0"

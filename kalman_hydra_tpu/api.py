@@ -161,19 +161,16 @@ def smooth(frames_or_tracks, cfg: Optional[RunConfig] = None) -> Trajectories:
 
 def flow_sharded(a: np.ndarray, b: np.ndarray,
                  cfg: Optional[FlowConfig] = None,
-                 method: str = "farneback", impl: str = "xla",
-                 interpret: bool = False) -> np.ndarray:
+                 method: str = "farneback") -> np.ndarray:
     """Dense flow with frame rows sharded across the device mesh
-    (SURVEY.md §2.2 spatial sharding; halo exchange over ICI).
+    (SURVEY.md §2.2 spatial sharding; halo exchange by `ppermute`).
 
-    method="farneback" requires cfg.fast_warp > 0 (bounded-halo warp);
-    impl="pallas" runs the fused production kernels per device band
-    (flow_iter band mode — interpret=True for CPU fake-mesh testing).
+    method="farneback" requires cfg.fast_warp > 0 (bounded-halo warp).
     """
     cfg = cfg or FlowConfig(fast_warp=8)
     from .parallel.spatial import farneback_sharded, lk_dense_sharded
     if method == "farneback":
-        return farneback_sharded(a, b, cfg, impl=impl, interpret=interpret)
+        return farneback_sharded(a, b, cfg)
     if method == "lk_dense":
         return lk_dense_sharded(a, b, cfg)
     raise ValueError(f"unknown sharded method {method!r}")

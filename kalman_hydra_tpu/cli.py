@@ -77,7 +77,7 @@ def main(argv=None):
     t.add_argument("--temporal", action="store_true",
                    help="warm-start each pair's flow from the previous "
                         "pair (Farneback; pairs well with fewer "
-                        "iterations — see BASELINE.md temporal table)")
+                        "iterations)")
     t.add_argument("--profile", help="write a jax.profiler trace here")
 
     f = sub.add_parser("flow", help="dense flow between two frames")
@@ -115,6 +115,8 @@ def main(argv=None):
                    help="O(1)-memory streaming driver")
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     logging.basicConfig(
         level=(logging.WARNING if args.v == 0
                else logging.INFO if args.v == 1 else logging.DEBUG),

@@ -1,6 +1,6 @@
 """Synthetic clip generation with analytic ground truth.
 
-TPU-native successor of the reference's synthetic-sequence validation
+JAX-era successor of the reference's synthetic-sequence validation
 scripts (SURVEY.md §4: "synthetic moving shapes with known ground truth");
 config 1 of BASELINE.json:7 ("synthetic 256x256 moving-blob clip") is
 generated here.
@@ -67,7 +67,7 @@ def moving_blob_clip(
     bg = _textured_background(height, width, rng)
 
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
-    c0 = np.array([width * 0.35, height * 0.6], dtype=np.float32)
+    c0 = _blob_center(0, height, width, velocity, accel)
     v = np.array(velocity, dtype=np.float32)
     a = np.array(accel, dtype=np.float32)
 
@@ -85,7 +85,7 @@ def moving_blob_clip(
     blob_tex = _textured_background(height, width, rng)
 
     for t in range(num_frames):
-        c = c0 + v * t + 0.5 * a * t * t
+        c = _blob_center(t, height, width, velocity, accel)
         vel_t[t] = v + a * t
         d = np.sqrt((xx - c[0]) ** 2 + (yy - c[1]) ** 2)
         # smooth plateau: ~1 inside 1.5*sigma, soft rim after — tracked points
@@ -115,6 +115,38 @@ def moving_blob_clip(
     if color:
         frames8 = np.repeat(frames8[..., None], 3, axis=-1)
     return frames8, SyntheticTruth(positions=positions, velocity=vel_t)
+
+
+def _blob_center(t: float, height: int, width: int, velocity: tuple,
+                 accel: tuple) -> np.ndarray:
+    """(x, y) blob center of `moving_blob_clip` at frame t."""
+    c0 = np.array([width * 0.35, height * 0.6], dtype=np.float32)
+    v = np.array(velocity, dtype=np.float32)
+    a = np.array(accel, dtype=np.float32)
+    return c0 + v * t + 0.5 * a * t * t
+
+
+def moving_blob_flow(t: int, height: int = 256, width: int = 256,
+                     blob_sigma: float = 12.0, velocity: tuple = (1.7, -1.1),
+                     accel: tuple = (0.0, 0.0)):
+    """Analytic dense flow of `moving_blob_clip` from frame t to t+1
+    (same geometry arguments as the clip).
+
+    Returns (flow (H, W, 2) float32, valid (H, W) bool). The blob's
+    textured plateau (within 1.0 sigma of its center in BOTH frames)
+    translates rigidly by c(t+1) - c(t); the static background more than
+    3 sigma from the blob in both frames has zero flow. The soft rim in
+    between blends two motions and is marked invalid."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    c_a = _blob_center(t, height, width, velocity, accel)
+    c_b = _blob_center(t + 1, height, width, velocity, accel)
+    d_a = np.hypot(xx - c_a[0], yy - c_a[1])
+    d_b = np.hypot(xx - c_b[0], yy - c_b[1])
+    inside = (d_a < blob_sigma) & (d_b < blob_sigma)
+    outside = (d_a > 3.0 * blob_sigma) & (d_b > 3.0 * blob_sigma)
+    flow = np.zeros((height, width, 2), np.float32)
+    flow[inside] = c_b - c_a
+    return flow, inside | outside
 
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:
@@ -369,7 +401,7 @@ def translating_pair(
     """A single grayscale frame pair related by a rigid subpixel translation.
 
     Ground-truth dense flow is constant = `shift`; used by unit tests to
-    score both the oracle and the TPU flow against analytic truth.
+    score both the oracle and the device flow against analytic truth.
     Returns (a, b, flow_true) with a, b float32 in [0, 255].
     """
     rng = np.random.default_rng(seed)

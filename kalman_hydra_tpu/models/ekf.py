@@ -1,10 +1,11 @@
 """Batched (extended) Kalman filter core, pure JAX.
 
-TPU-native equivalent of the reference's CUDA estimation kernels
+JAX equivalent of the reference's CUDA estimation kernels
 (SURVEY.md §2.1 #4): "batched small-matrix ops vmapped over thousands of
 tracked points" (BASELINE.json:5). All functions operate on track batches
 (K, n) / (K, n, n); einsum contractions with HIGHEST precision keep the
-filter float32-stable on the MXU (SURVEY.md §7 numerics policy).
+filter float32-stable (no TF32 or bf16 passes; SURVEY.md §7 numerics
+policy).
 
 Math contract (SURVEY.md §2.3): predict x=Fx, P=FPF^T+Q; update
 y = z - h(x), S = HPH^T + R, K = PH^T S^-1 via closed-form 2x2 Cholesky,
@@ -189,37 +190,19 @@ def measure_implicit_flow(flow: jnp.ndarray, x_prev: jnp.ndarray,
 
 
 def ekf_step(state: TrackState, flow: jnp.ndarray, cfg: EkfConfig,
-             F: jnp.ndarray, Q: jnp.ndarray, R: jnp.ndarray,
-             impl: str = "xla", interpret: bool = False):
+             F: jnp.ndarray, Q: jnp.ndarray, R: jnp.ndarray):
     """One frame: predict + (I)EKF update for all K tracks.
 
     Dead tracks still predict (freeze handled by caller masks). Returns
     (state', aux) where aux carries (x_pred, P_pred, nis) for smoothing
     and gating.
-
-    impl="pallas" routes the linear position update through the fused
-    predict+update kernel (kernels/ekf_pallas.py — the reference's CUDA
-    estimation-kernel analog, hardware-verified round 2); the flow sample
-    producing the residual stays in XLA (gather policy, SURVEY.md §7).
-    Falls back to XLA when the kernel's contract doesn't apply
-    (per-track q_scale, nonlinear measurements, non-diagonal R).
     """
     x_prev = state.x
     x_pred, P_pred = predict(state.x, state.P, F, Q, q_scale=state.q_scale)
 
     if cfg.measurement == "position":
         y, H = measure_position(flow, x_prev, x_pred, cfg)
-        if impl == "pallas" and state.q_scale is None:
-            from ..kernels.ekf_pallas import ekf_fused_step
-            # the kernel fuses its own predict from the PRE-predict state;
-            # y is the residual vs the prediction, as its contract
-            # requires. F/Q are baked into the kernel as static constants,
-            # so they come from the (static) config, not the traced args.
-            x_new, P_new, nis = ekf_fused_step(
-                state.x, state.P, y, H, dynamics.transition(cfg),
-                dynamics.process_noise(cfg), cfg.r, interpret=interpret)
-        else:
-            x_new, P_new, nis = update(x_pred, P_pred, y, H, R)
+        x_new, P_new, nis = update(x_pred, P_pred, y, H, R)
     elif cfg.filter_type == "ukf":
         from .ukf import ukf_update
         x_new, P_new, nis = ukf_update(x_pred, P_pred, flow,

@@ -1,6 +1,6 @@
 """Photometric-residual measurement channel (appearance-based EKF update).
 
-TPU-native analog of the reference's render-based observation model
+JAX analog of the reference's render-based observation model
 (SURVEY.md §2.1 #3/#4): the original rendered the deformed mesh with
 OpenGL and computed per-perturbation residual norms and J^T z products in
 CUDA. Here the "render" is the track's template patch from the previous
@@ -14,8 +14,8 @@ starting at the PREDICTED position (the filter provides the warm start).
 The converged position z enters the EKF as a position measurement with
 per-track covariance R_k = sigma_I^2 * G^{-1} — the Gauss-Newton
 covariance, so weakly textured patches automatically carry large R and
-barely move the state (the matrix-free Jacobian trick, TPU-shaped:
-everything is one batched window gather + VPU reductions, no rendering).
+barely move the state (the matrix-free Jacobian trick: everything is one
+batched window gather + elementwise reductions, no rendering).
 
 Unlike the flow channels this reads the FRAMES, so it keeps tracking when
 the dense flow field drops out (tested in test_photometric.py).
@@ -70,9 +70,8 @@ def photometric_measure(prev_gray: jnp.ndarray, gray: jnp.ndarray,
     T = bilinear_sample(prev_gray, tx, ty)              # (K, W*W) template
     gx, gy = _image_gradients(gray)
 
-    # one (H*W, 3) row-gather per sweep instead of three bilinear gathers:
-    # TPU gathers are per-index bound and the payload width is nearly free
-    # (BASELINE.md warp shootout; same batching as models/render.py)
+    # one (H*W, 3) row-gather per sweep instead of three bilinear gathers
+    # (a third of the gather indices; same batching as models/render.py)
     h, w = gray.shape
     planes = jnp.stack([gray, gx, gy], axis=-1).reshape(h * w, 3)
 

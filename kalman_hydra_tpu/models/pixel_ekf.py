@@ -4,8 +4,8 @@ BASELINE.json:8 (config 2): "per-pixel EKF smoothing of flow field" —
 every pixel runs an independent 2-state-per-component constant-velocity KF
 over time, smoothing the (u, v) flow measurement sequence. Because the
 per-pixel system is tiny and identical everywhere, the filter is written
-in closed scalar form and vectorized over the full (H, W) grid — one VPU
-pass per frame, no matrices materialized (the 2x2 covariance has 3 unique
+in closed scalar form and vectorized over the full (H, W) grid — one
+elementwise pass per frame, no matrices materialized (the 2x2 covariance has 3 unique
 scalars per pixel per component).
 
 State per flow component: [value, rate]; measurement: that component of

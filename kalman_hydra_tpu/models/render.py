@@ -6,8 +6,8 @@ computing residual norms and J^T z products by perturb-render-diff
 (SURVEY.md §2.1 #3/#4; the reference checkout is empty — see SURVEY.md §0 —
 so this follows the [R]-tier reconstruction + the BASELINE.json:5 contract).
 
-TPU-native redesign: instead of rasterizing the deformed mesh forward (a
-scatter, which TPUs hate), the OBSERVED frame is pulled back to the rest
+Array-native redesign: instead of rasterizing the deformed mesh forward
+(a scatter), the OBSERVED frame is pulled back to the rest
 (template) frame through the piecewise-affine mesh warp:
 
     q(p; V) = sum_m bary_m(p) * v_{tri(p), m}      (rest pixel p -> image)
@@ -16,7 +16,7 @@ scatter, which TPUs hate), the OBSERVED frame is pulled back to the rest
 
 The pixel->triangle assignment and barycentric weights are computed ONCE on
 host at template build time (static arrays), so the per-frame cost is one
-(P,)-point gather + VPU reductions — no rasterization, no scatter. The
+(P,)-point gather + elementwise reductions — no rasterization, no scatter. The
 Jacobian is closed-form (dI_w/dv_k = grad I(q) * bary_k), and the per-vertex
 Gauss-Newton normal equations are segment-sums over the template pixels.
 Unlike the independent-patch photometric channel (models/photometric.py),
@@ -149,7 +149,7 @@ def render_loss(gray: jnp.ndarray, verts: jnp.ndarray,
 
 def render_jtz(gray: jnp.ndarray, verts: jnp.ndarray,
                tmpl: RenderTemplate) -> jnp.ndarray:
-    """Matrix-free J^T r product, J = dI_w/dverts — the TPU/autodiff
+    """Matrix-free J^T r product, J = dI_w/dverts — the autodiff
     equivalent of the reference's CUDA J^T z kernels (SURVEY.md §2.1 #4):
     one VJP through the differentiable warp instead of V*2 perturbed
     re-renders. Equals -grad(render_loss) since r = T - I_w."""
@@ -180,8 +180,7 @@ def render_measure(gray: jnp.ndarray, tmpl: RenderTemplate,
     ids = tmpl.tri.reshape(-1)
     w1 = tmpl.bary                                         # (P, 3)
 
-    # TPU gathers/scatters are per-index bound, payload width nearly free
-    # (BASELINE.md warp shootout): stack [gray, gx, gy] into one (H*W, 3)
+    # stack [gray, gx, gy] into one (H*W, 3)
     # row-gather per sweep instead of three bilinear gathers, and batch
     # the five normal-equation reductions into one (3P, 5) segment-sum —
     # ~4x fewer indices per sweep, bit-identical per-element math.

@@ -5,7 +5,7 @@ iterated EKF — SURVEY.md §2.1 #2; the UKF is the standard third member):
 instead of linearizing the flow-sampling measurement h(x) = pos(x) -
 flow(pos(x)) with a central-difference Jacobian, propagate 2n+1 sigma
 points through the actual sampler. Per track that is 2n+1 bilinear flow
-samples — a tiny (K*(2n+1), 2) gather, vmap/batch friendly on TPU.
+samples — a tiny (K*(2n+1), 2) gather, vmap/batch friendly.
 
 Selectable via EkfConfig.filter_type = "ukf" (measurement models
 "implicit_flow"/"flow_photometric"; "position" is linear so the UKF

@@ -200,8 +200,8 @@ def update_flow(M: jnp.ndarray, winsize: int, gaussian: bool) -> jnp.ndarray:
 def _warp_poly_selectsum(R1: jnp.ndarray, flow: jnp.ndarray,
                          max_disp: int) -> jnp.ndarray:
     """Gather-free bilinear warp of (H, W, C) planes by one-hot select over
-    +-max_disp shifted copies (TPU gathers are the pipeline bottleneck —
-    55 of 59 ms per 1080p iteration; shifted selects are plain VPU work).
+    +-max_disp shifted copies (shifted selects are elementwise work; no
+    gather).
 
     Exact in the vertical pass. The horizontal pass reuses the vertically
     lerped field at neighbor columns, whose vertical displacement may
@@ -222,8 +222,7 @@ def _warp_poly_selectsum(R1: jnp.ndarray, flow: jnp.ndarray,
 
     c = R1.shape[2]
     # rolled loops (fori_loop + dynamic_slice): identical work to the
-    # unrolled one-hot sum but O(1) HLO size — unrolled versions take tens
-    # of minutes to compile on this host at 1080p
+    # unrolled one-hot sum but O(1) HLO size
     Rp = jnp.pad(R1, ((D + 1, D + 1), (0, 0), (0, 0)), mode="edge")
 
     def vbody(i, acc):
@@ -277,9 +276,10 @@ def _warp_poly_planar(R1p: jnp.ndarray, flow_p: jnp.ndarray) -> jnp.ndarray:
 
 
 # --------------------------------------------------------------- planar path
-# Internal planar (C, H, W) layout: each plane tiles the TPU's (8, 128)
-# registers fully, where channel-last (H, W, 5) arrays waste 123/128 lanes
-# on every elementwise/cumsum pass. The public API stays (H, W, 2).
+# Internal planar (C, H, W) layout: each plane is a contiguous (H, W)
+# image, so every elementwise/cumsum pass runs over unit-stride rows
+# instead of a 5-wide channel-last minor axis. The public API stays
+# (H, W, 2).
 
 def poly_expansion_p(img: jnp.ndarray, n: int, sigma: float) -> jnp.ndarray:
     """Planar twin of poly_expansion: (H, W) -> (5, H, W)."""
@@ -318,10 +318,10 @@ def _warp_poly_selectsum_p(R1p: jnp.ndarray, flow_p: jnp.ndarray,
     Rp = jnp.pad(R1p, ((0, 0), (D + 1, D + 1), (0, 0)), mode="edge")
 
     # unrolled one-hot sums: the full (2D+1)-term select chain fuses into
-    # one XLA kernel instead of round-tripping the accumulator through HBM
-    # every fori_loop iteration. Loads stay in the storage dtype (bf16
-    # mode reads half the bytes); selection/lerp run in f32 — on TPU the
-    # fused bf16 chain rounds differently enough to cost ~0.03 px EPE.
+    # one XLA kernel instead of round-tripping the accumulator through
+    # device memory every fori_loop iteration. Loads stay in the storage
+    # dtype (bf16 mode reads half the bytes); selection/lerp run in f32
+    # so the fused chain does not round in bf16.
     zero = jnp.zeros((), jnp.float32)
     ayf = ay.astype(jnp.float32)
     axf = ax.astype(jnp.float32)
@@ -403,53 +403,36 @@ def update_flow_p(Mp: jnp.ndarray, winsize: int, gaussian: bool
                       (g11 * h2 - g12 * h1) * idet], axis=0)
 
 
-def polyexp_pyramid(img: jnp.ndarray, cfg: FlowConfig, impl: str = "xla",
-                    interpret: bool = False):
+def polyexp_pyramid(img: jnp.ndarray, cfg: FlowConfig):
     """Per-level polynomial-expansion planes for one frame (coarsest
     first, matching farneback_levels order). The tracking pipeline caches
     this in its scan carry so each frame's pyramid+polyexp is computed
-    once, not twice (SURVEY.md §3.1 hot-loop note). impl="pallas" computes
-    the planes with the fused Pallas kernel (same caching contract)."""
+    once, not twice (SURVEY.md §3.1 hot-loop note)."""
     dt = jnp.bfloat16 if cfg.bf16_poly else jnp.float32
-    if impl == "pallas":
-        from ..kernels.polyexp_pallas import poly_expansion_planar as _pe
-        if cfg.pe_fused:
-            # coarse levels: ONE launch for blur+resize+polyexp (level
-            # images stay in VMEM); level 0: blur in XLA (3 taps), the
-            # full-res polyexp kernel. pe_fused=False falls back to the
-            # per-stage kernels.
-            from ..kernels.level_image_pallas import coarse_polyexp_fused
-            from .pyramid import farneback_levels, gaussian_blur_level
-            coarse = coarse_polyexp_fused(img, cfg.levels, cfg.pyr_scale,
-                                          cfg.poly_n, cfg.poly_sigma,
-                                          out_dtype=dt, interpret=interpret)
-            img0 = gaussian_blur_level(img.astype(jnp.float32), cfg, k=0)
-            fine = _pe(img0, cfg.poly_n, cfg.poly_sigma, out_dtype=dt,
-                       tile_h=cfg.pe_tile_h, interpret=interpret)
-            return tuple(coarse) + (fine,)
-        from ..kernels.level_image_pallas import farneback_images_pallas
-        imgs = farneback_images_pallas(img, cfg.levels, cfg.pyr_scale,
-                                       interpret=interpret)
-        return tuple(_pe(i, cfg.poly_n, cfg.poly_sigma, out_dtype=dt,
-                         tile_h=cfg.pe_tile_h, interpret=interpret)
+    with jax.named_scope("polyexp"):
+        imgs = farneback_images(img, cfg.levels, cfg.pyr_scale)
+        return tuple(poly_expansion_p(i, cfg.poly_n,
+                                      cfg.poly_sigma).astype(dt)
                      for i in imgs)
-    imgs = farneback_images(img, cfg.levels, cfg.pyr_scale)
-    return tuple(poly_expansion_p(i, cfg.poly_n, cfg.poly_sigma).astype(dt)
-                 for i in imgs)
+
+
+def _iteration(cfg: FlowConfig):
+    """One Farneback iteration (R0p, R1p, flow_p) -> flow_p; the named
+    scopes tag its compiled fusions for trace attribution."""
+    def it(R0p, R1p, flow_p):
+        with jax.named_scope("matrices"):
+            Mp = update_matrices_p(R0p, R1p, flow_p,
+                                   fast_warp=cfg.fast_warp)
+        with jax.named_scope("smooth_solve"):
+            return update_flow_p(Mp, cfg.winsize, cfg.gaussian_win)
+    return it
 
 
 def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
-                            flow0: Optional[jnp.ndarray] = None,
-                            impl: str = "xla", interpret: bool = False):
+                            flow0: Optional[jnp.ndarray] = None):
     """Farneback iterations from precomputed PLANAR polyexp pyramids
-    ((5, lh, lw) per level). Returns (H, W, 2). impl="pallas" runs the
-    fused flow-update kernel per iteration (warp stays in XLA, SURVEY.md
-    §7 gather policy)."""
-    if impl == "pallas":
-        from ..kernels.flow_iter_pallas import flow_iter as _fi
-        from ..kernels.flow_update_pallas import flow_update as _fu
-        from ..kernels.flow_level_pallas import flow_level as _flvl
-        from ..kernels.flow_level_pallas import fits_vmem as _flvl_fits
+    ((5, lh, lw) per level). Returns (H, W, 2)."""
+    iteration = _iteration(cfg)
     flow_p = None
     for li in range(len(Rs_a)):
         R0p, R1p = Rs_a[li], Rs_b[li]
@@ -463,122 +446,17 @@ def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
                 flow_p = jnp.zeros((2, lh, lw), jnp.float32)
         else:
             flow_p = resize_linear(flow_p, lh, lw) * (1.0 / cfg.pyr_scale)
-        if impl == "pallas" and cfg.fast_warp > 0:
-            # coarse levels that fit VMEM run ALL iterations in ONE
-            # launch (flow carry stays on-chip) — the per-iteration
-            # launch + pad/crop dispatch overhead dominates their
-            # compute (tools/fi_decomp_ab.py). fi_level_fused=False
-            # reverts to per-iteration kernels.
-            if (cfg.fi_level_fused
-                    and _flvl_fits(lh, lw, cfg.winsize, cfg.fast_warp,
-                                   R0p.dtype.itemsize)):
-                flow_p = _flvl(R0p, R1p, flow_p, cfg.winsize,
-                               cfg.fast_warp, cfg.iterations,
-                               gaussian=cfg.gaussian_win,
-                               interpret=interpret)
-                continue
-            # FULLY fused iterations: select-sum warp + normal equations
-            # + winsize smoothing + solve in one kernel per iteration.
-            # Planes go in at storage dtype (bf16 halves the slab DMA
-            # bytes; accumulation is f32 inside the kernel) and are
-            # padded into the slab layout ONCE per level (prep_planes) —
-            # they are iteration-invariant, so per-call padding tripled
-            # the XLA pad traffic.
-            from ..kernels.flow_iter_pallas import prep_planes as _prep
-            _th = cfg.fi_tile_h
-            R0pp = _prep(R0p, cfg.winsize, cfg.fast_warp, tile_h=_th)
-            R1pp = _prep(R1p, cfg.winsize, cfg.fast_warp, tile_h=_th)
-            if cfg.fi_pipeline and cfg.iterations >= 2:
-                # strip-mined: ALL iterations in one launch (skewed
-                # pipeline; intermediate flows stay in VMEM rings, R
-                # slabs DMA once per band instead of once per iteration)
-                from ..kernels.flow_iter_pallas import (
-                    flow_iters_pipelined as _fip)
-                flow_p = _fip(R0pp, R1pp, flow_p, cfg.winsize,
-                              cfg.fast_warp, cfg.iterations,
-                              img_hw=(lh, lw), gaussian=cfg.gaussian_win,
-                              tile_h=_th, shift_skip=cfg.fi_shift_skip,
-                              interpret=interpret)
-                continue
+        with jax.named_scope(f"fb_level{len(Rs_a) - 1 - li}"):
             for _ in range(cfg.iterations):
-                flow_p = _fi(R0pp, R1pp, flow_p,
-                             cfg.winsize, cfg.fast_warp,
-                             cfg.gaussian_win,
-                             tile_h=_th,
-                             shift_skip=cfg.fi_shift_skip,
-                             img_hw=(lh, lw),
-                             interpret=interpret)
-            continue
-        for _ in range(cfg.iterations):
-            if impl == "pallas":
-                if cfg.fast_warp > 0:
-                    raise AssertionError("unreachable: pallas fast_warp "
-                                         "handled above")
-                else:
-                    # exact-warp path: gather in XLA, rest fused. This is
-                    # the bit-parity mode, so bf16-stored planes upcast to
-                    # f32 here (flow_update's kernel is f32-only)
-                    R0f = R0p.astype(jnp.float32)
-                    # the warp's f32 lerp weights promote bf16 planes to
-                    # f32 on the fly (same policy as update_matrices_p) —
-                    # no full-plane upcast copy needed
-                    R1wp = _warp_poly_planar(R1p, flow_p)
-                    flow_p = _fu(R0f, R1wp.astype(jnp.float32), flow_p,
-                                 cfg.winsize, cfg.gaussian_win,
-                                 interpret=interpret)
-            else:
-                Mp = update_matrices_p(R0p, R1p, flow_p,
-                                       fast_warp=cfg.fast_warp)
-                flow_p = update_flow_p(Mp, cfg.winsize, cfg.gaussian_win)
+                flow_p = iteration(R0p, R1p, flow_p)
     return jnp.moveaxis(flow_p, 0, -1)
 
 
-def polyexp_pyramid_batch(grays: jnp.ndarray, cfg: FlowConfig,
-                          impl: str = "xla", interpret: bool = False):
+def polyexp_pyramid_batch(grays: jnp.ndarray, cfg: FlowConfig):
     """Per-level polyexp planes for a (N, H, W) frame stack, coarsest
-    first: tuple of (N, 5, lh, lw). The pair-batched pipeline's front end
-    — on the pallas path every frame shares ONE coarse-fused launch and
-    ONE full-res polyexp launch (kernels/{level_image,polyexp}_pallas
-    *_batch; launch amortization, BASELINE.md round-3 session-3).
-    Per-frame math identical to polyexp_pyramid (bit-level modulo XLA
-    fusion-order rounding, ~1e-6 relative)."""
+    first: tuple of (N, 5, lh, lw). The pair-batched pipeline's front
+    end; per-frame math identical to polyexp_pyramid."""
     dt = jnp.bfloat16 if cfg.bf16_poly else jnp.float32
-    if impl == "pallas":
-        if not cfg.pe_fused:
-            # honor the pe_fused=False per-stage fallback (same contract
-            # as polyexp_pyramid) — the per-stage kernels' manual DMA
-            # rejects a vmapped batch dim, so map frames sequentially;
-            # this keeps pe_fused A/Bs honest under pair_batch
-            return jax.lax.map(
-                lambda im: polyexp_pyramid(im, cfg, impl=impl,
-                                           interpret=interpret), grays)
-        from ..kernels.level_image_pallas import coarse_polyexp_fused_batch
-        from ..kernels.polyexp_pallas import poly_expansion_planar_batch
-        from .pyramid import gaussian_blur_level
-        # XLA keeps the whole (N, 5, lh, lw) coarse outputs VMEM-resident
-        # around the kernel's scoped stack; at 1080p that overflows the
-        # scoped budget from N=36 (measured: B=4 multi-clip OOM by 1.5 MB,
-        # BASELINE.md round-5). Split into even chunks of <=33 frames —
-        # every single-clip graph (T<=33) keeps its exact launch shape.
-        N = grays.shape[0]
-        if N > 33:
-            nch = -(-N // 33)
-            per = -(-N // nch)
-            parts = [coarse_polyexp_fused_batch(
-                grays[i:i + per], cfg.levels, cfg.pyr_scale, cfg.poly_n,
-                cfg.poly_sigma, out_dtype=dt, interpret=interpret)
-                for i in range(0, N, per)]
-            coarse = [jnp.concatenate([p[li] for p in parts])
-                      for li in range(len(parts[0]))]
-        else:
-            coarse = coarse_polyexp_fused_batch(
-                grays, cfg.levels, cfg.pyr_scale, cfg.poly_n,
-                cfg.poly_sigma, out_dtype=dt, interpret=interpret)
-        img0 = gaussian_blur_level(grays.astype(jnp.float32), cfg, k=0)
-        fine = poly_expansion_planar_batch(
-            img0, cfg.poly_n, cfg.poly_sigma, out_dtype=dt,
-            tile_h=cfg.pe_tile_h, interpret=interpret)
-        return tuple(coarse) + (fine,)
     imgs = farneback_images(grays, cfg.levels, cfg.pyr_scale)
     pe = jax.vmap(lambda im: poly_expansion_p(im, cfg.poly_n,
                                               cfg.poly_sigma))
@@ -586,8 +464,7 @@ def polyexp_pyramid_batch(grays: jnp.ndarray, cfg: FlowConfig,
 
 
 def farneback_pairs_from_pyramids(Rs_all, cfg: FlowConfig,
-                                  clip_len: int = 0, impl: str = "xla",
-                                  interpret: bool = False) -> jnp.ndarray:
+                                  clip_len: int = 0) -> jnp.ndarray:
     """Cold Farneback flow for ALL consecutive frame pairs of a clip (or
     of several chained clips) from batched polyexp pyramids.
 
@@ -595,10 +472,7 @@ def farneback_pairs_from_pyramids(Rs_all, cfg: FlowConfig,
     stacks for N frames. Pair b uses frames (p, p+1) with p = b, or
     p = b + b // (clip_len - 1) when `clip_len` = T chains C clips as
     N = C * T. Returns (B, H, W, 2) flows, per-pair identical to
-    farneback_from_pyramids (cold start, flow0=None).
-
-    impl="pallas": every iteration of a level is ONE flow_iter_pairs
-    launch shared by all B pairs — the launch-amortization path."""
+    farneback_from_pyramids (cold start, flow0=None)."""
     N = Rs_all[0].shape[0]
     if clip_len:
         ppc = clip_len - 1
@@ -607,8 +481,7 @@ def farneback_pairs_from_pyramids(Rs_all, cfg: FlowConfig,
     else:
         B = N - 1
         pidx = np.arange(B)
-    if impl == "pallas" and cfg.fast_warp > 0:
-        from ..kernels.flow_iter_pallas import flow_iter_pairs, prep_planes
+    iteration = _iteration(cfg)
     flow_b = None
     for li in range(len(Rs_all)):
         Rl = Rs_all[li]
@@ -619,38 +492,16 @@ def farneback_pairs_from_pyramids(Rs_all, cfg: FlowConfig,
             flow_b = jax.vmap(
                 lambda f: resize_linear(f, lh, lw))(flow_b) \
                 * (1.0 / cfg.pyr_scale)
-        if impl == "pallas" and cfg.fast_warp > 0:
-            _th = cfg.fi_tile_h
-            Rlp = jax.vmap(lambda R: prep_planes(
-                R, cfg.winsize, cfg.fast_warp, tile_h=_th))(Rl)
-            for _ in range(cfg.iterations):
-                flow_b = flow_iter_pairs(
-                    Rlp, flow_b, cfg.winsize, cfg.fast_warp, (lh, lw),
-                    gaussian=cfg.gaussian_win, tile_h=_th,
-                    shift_skip=cfg.fi_shift_skip,
-                    clip_len=clip_len,
-                    interpret=interpret)
-        else:
-            R0 = Rl[pidx]
-            R1 = Rl[pidx + 1]
-            for _ in range(cfg.iterations):
-                Mp = jax.vmap(lambda a, b, f: update_matrices_p(
-                    a, b, f, fast_warp=cfg.fast_warp))(R0, R1, flow_b)
-                flow_b = jax.vmap(lambda M: update_flow_p(
-                    M, cfg.winsize, cfg.gaussian_win))(Mp)
+        R0 = Rl[pidx]
+        R1 = Rl[pidx + 1]
+        for _ in range(cfg.iterations):
+            flow_b = jax.vmap(iteration)(R0, R1, flow_b)
     return jnp.moveaxis(flow_b, 1, -1)
 
 
 def farneback(prev: jnp.ndarray, nxt: jnp.ndarray, cfg: FlowConfig,
-              flow0: Optional[jnp.ndarray] = None,
-              impl: str = "xla", interpret: bool = False) -> jnp.ndarray:
-    """Dense flow prev -> next, (H, W, 2) float32, channel 0 = x.
-
-    impl="pallas" swaps in the fused kernels (polyexp + flow-update) behind
-    identical numerics; the bilinear coefficient warp stays in XLA either
-    way (SURVEY.md §7 gather policy).
-    """
-    Rs_a = polyexp_pyramid(prev, cfg, impl=impl, interpret=interpret)
-    Rs_b = polyexp_pyramid(nxt, cfg, impl=impl, interpret=interpret)
-    return farneback_from_pyramids(Rs_a, Rs_b, cfg, flow0=flow0,
-                                   impl=impl, interpret=interpret)
+              flow0: Optional[jnp.ndarray] = None) -> jnp.ndarray:
+    """Dense flow prev -> next, (H, W, 2) float32, channel 0 = x."""
+    Rs_a = polyexp_pyramid(prev, cfg)
+    Rs_b = polyexp_pyramid(nxt, cfg)
+    return farneback_from_pyramids(Rs_a, Rs_b, cfg, flow0=flow0)

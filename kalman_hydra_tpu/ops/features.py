@@ -1,6 +1,6 @@
 """Shi-Tomasi corner response and static-shape seeding / re-init pools.
 
-TPU-native stand-in for cv2.goodFeaturesToTrack (SURVEY.md §2.1 #7: track
+JAX stand-in for cv2.goodFeaturesToTrack (SURVEY.md §2.1 #7: track
 seeding replaces the reference's DistMesh vertex generation). The corner
 response follows cv2.cornerMinEigenVal (Sobel-3 derivatives, box window,
 min-eigenvalue of the structure tensor). Selection must be shape-static

@@ -55,7 +55,7 @@ def correlate1d(x: jnp.ndarray, kernel, axis: int,
                 border: str = "reflect101") -> jnp.ndarray:
     """Same-shape 1-D correlation along `axis` with an odd-length kernel.
 
-    Short kernels unroll into shifted adds (pure VPU work XLA fuses freely);
+    Short kernels unroll into shifted adds (elementwise work XLA fuses);
     long kernels lower to a conv so the HLO stays small at the big
     Farneback-pyramid sigmas (79-tap at the coarsest 1080p level).
     """
@@ -64,9 +64,8 @@ def correlate1d(x: jnp.ndarray, kernel, axis: int,
     k = len(kernel)
     r = k // 2
     xp = pad1d(x, r, r, axis, border)
-    # unrolled shifted adds beat conv_general_dilated on v5e for every
-    # kernel size used here (measured end-to-end; the conv path remains
-    # for pathological sizes to bound HLO growth)
+    # unrolled shifted adds fuse into their consumers; the conv path is
+    # kept for pathological sizes to bound HLO growth
     if k <= 99:
         out = None
         n = x.shape[axis]
@@ -114,22 +113,19 @@ def box_filter(x: jnp.ndarray, size: int, axis: int,
                border: str = "replicate", normalize: bool = True):
     """Odd-size box filter along one axis.
 
-    Windows up to 15 taps unroll into shifted adds — measured ~1.8x faster
-    than the cumsum formulation on v5e (pure VPU adds fuse; the prefix
-    scan does not). Larger windows use padded cumulative sums (O(1) work
-    per pixel regardless of size).
+    Windows up to 15 taps unroll into shifted adds (elementwise adds fuse;
+    a prefix scan does not). Larger windows use padded cumulative sums
+    (O(1) work per pixel regardless of size).
     """
     r = size // 2
     axis = axis % x.ndim
     xp = pad1d(x, r, r, axis, border)
     n = x.shape[axis]
-    # factored 3xA box decomposition (round-2 A/B winner, 59->71.5
-    # fps at 1080p XLA path; identical up to fp regrouping)
+    # factored 3xA box decomposition (identical up to fp regrouping)
     if size >= 9 and size % 3 == 0:
         # factored split: box(3a) = box3 then a strided box_a with step 3
         # (exact regrouping of the sum) — 3 + a shifted reads instead of
-        # 3a, i.e. ~half the HBM traffic for the winsize-15 Farneback
-        # smoothing sweeps (the dominant non-warp cost at 1080p)
+        # 3a for the winsize-15 Farneback smoothing sweeps
         summed = _box_split3(xp, size, n, axis, x.ndim)
     elif size <= 15:
         # accumulate in f32 even for bf16 inputs: reads stay half-width,

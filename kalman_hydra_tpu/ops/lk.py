@@ -42,8 +42,7 @@ def scharr_gradients(img: jnp.ndarray):
 def _patch(img_pad, cx, cy, w: int, half: float):
     """(w, w) bilinear patch centered at PADDED coords (cx, cy): ONE
     dynamic_slice of a (w+1, w+1) block + 4 static shifts — one gather
-    index per patch instead of 4*w^2 (TPU gathers are per-index bound;
-    this took the 1080p sparse pipeline from ~1 fps to usable)."""
+    index per patch instead of 4*w^2."""
     bx = jnp.floor(cx - half).astype(jnp.int32)
     by = jnp.floor(cy - half).astype(jnp.int32)
     fx = cx - half - bx.astype(jnp.float32)
@@ -107,10 +106,9 @@ def _track_point_level(img_a, img_b, gx, gy, pt, guess, cfg: FlowConfig):
 def _gather_blocks(imgs: jnp.ndarray, by: jnp.ndarray, bx: jnp.ndarray,
                    size: int) -> jnp.ndarray:
     """Batched (K, C, size, size) block extraction from (C, Hp, Wp) images
-    at per-point integer bases — TPU-native gather: one ROW gather (cheap,
-    per-index bound on K*size row ids) + a one-hot column contraction on
-    the MXU. Replaces K*size^2 scalar gather indices / K dynamic-slices
-    (the sparse-LK bottleneck: ~1 us per slice dispatch)."""
+    at per-point integer bases: one ROW gather (K*size row ids) + a
+    one-hot column contraction. Replaces K*size^2 scalar gather indices /
+    K dynamic-slices."""
     C, H, W = imgs.shape
     iy = jnp.clip(by[:, None] + jnp.arange(size)[None, :], 0, H - 1)
     rows = imgs[:, iy]                                    # (C, K, size, W)
@@ -125,11 +123,9 @@ def _gather_blocks_klast(imgs: jnp.ndarray, by: jnp.ndarray, bx: jnp.ndarray,
                          size: int) -> jnp.ndarray:
     """K-LAST twin of _gather_blocks: returns (C, size, size, K).
 
-    K sits on the TPU lane dimension so the downstream per-point iteration
-    math packs the (8, 128) registers fully — with K leading, every
-    (size, size) patch wastes ~(1 - size/128) of each vector register
-    (measured: the per-level tracking cost was nearly independent of
-    level image size; it was all VPU packing waste)."""
+    K is the minor (contiguous) axis, so the downstream per-point
+    iteration math runs elementwise over long unit-stride K vectors
+    instead of small (size, size) patches."""
     C, H, W = imgs.shape
     iy = jnp.clip(by[:, None] + jnp.arange(size)[None, :], 0, H - 1)
     rows = imgs[:, iy]                                    # (C, K, size, W)
@@ -148,12 +144,12 @@ def _gather_blocks_klast_blocked(imgs: jnp.ndarray, by: jnp.ndarray,
 
     The plain version materializes the full-width row gather
     (C, K, size, W) AND a (K, size, W) one-hot — ~300 MB each at
-    1080p/K=1024 — before the MXU contraction. Here the column offset is
+    1080p/K=1024 — before the contraction. Here the column offset is
     split into a 128-block index and a residual: a flat row+block gather
-    fetches only the TWO 128-lane blocks covering each window row
+    fetches only the TWO 128-column blocks covering each window row
     ((C, K, size, 256) ≈ 40 MB), and the residual resolves via a small
-    (K, size, 256) one-hot MXU contraction. Identical math, ~8x less
-    intermediate HBM traffic."""
+    (K, size, 256) one-hot contraction. Identical math, ~8x smaller
+    intermediates."""
     C, H, W = imgs.shape
     BL = 128
     nb = (W + BL - 1) // BL + 1          # +1 guard block for bb+1
@@ -188,7 +184,7 @@ def _bilinear_shift(blk: jnp.ndarray, fx, fy, out: int) -> jnp.ndarray:
 def _select_subblock(blk: jnp.ndarray, dy, dx, size: int) -> jnp.ndarray:
     """(B, B) block -> (size, size) sub-block at traced integer offset
     (dy, dx) in [0, B-size], via masked sums over the static shifts
-    (select-sum: VPU work instead of a dynamic-slice dispatch)."""
+    (select-sum: elementwise work instead of a dynamic-slice)."""
     B = blk.shape[-1]
     nshift = B - size + 1
     rows = None
@@ -251,7 +247,7 @@ def _track_point_level_block(blk_b, patch_a, pgx, pgy, base, guess,
 
 def _bshift_klast(blk, fx, fy, w):
     """(..., n+1, n+1, K) -> (..., n, n, K) subpixel bilinear shift via
-    the 4 static corner slices (no gathers; K stays on lanes)."""
+    the 4 static corner slices (no gathers; K stays the minor axis)."""
     return (blk[..., :w, :w, :] * (1 - fx) * (1 - fy)
             + blk[..., :w, 1:w + 1, :] * fx * (1 - fy)
             + blk[..., 1:w + 1, :w, :] * (1 - fx) * fy
@@ -265,9 +261,8 @@ def _lk_level_prologue(pa, pb, pgx, pgy, pt_l, guess, cfg: FlowConfig):
     search blocks around the initial guess.
 
     blocked gather (FlowConfig.lk_blocked_gather, default True):
-    bit-exact and the single biggest sparse win on silicon (74.4 ->
-    133.8 fps at 1080p/1k tracks — the plain full-width gather's
-    ~300 MB intermediates dominated the solve)."""
+    bit-exact, and it avoids the plain full-width gather's ~300 MB
+    intermediates at 1080p/1k tracks."""
     w = cfg.lk_winsize
     half = (w - 1) * 0.5
     D = cfg.lk_block_halo
@@ -309,10 +304,9 @@ def _lk_level_prologue(pa, pb, pgx, pgy, pt_l, guess, cfg: FlowConfig):
 
 def _lk_level_batched_klast(pa, pb, pgx, pgy, pt_l, guess, cfg: FlowConfig):
     """One pyramid level for ALL points, K-LAST layout: the K point axis
-    rides the TPU lane dimension through every patch op, so the VPU
-    registers are ~fully packed (the vmapped K-leading variant wastes
-    ~70% of each (8, 128) register on the patch width; measured ~2x
-    slower per level at K=1024, win=21)."""
+    is the minor axis through every patch op, so each elementwise pass
+    runs over K-long contiguous vectors (the vmapped K-leading variant
+    iterates over small w-wide patches instead)."""
     w = cfg.lk_winsize
     half = (w - 1) * 0.5
     D = cfg.lk_block_halo
@@ -332,7 +326,7 @@ def _lk_level_batched_klast(pa, pb, pgx, pgy, pt_l, guess, cfg: FlowConfig):
         dx_i = jnp.floor(ox).astype(jnp.int32)
         dy_i = jnp.floor(oy).astype(jnp.int32)
         # select-sum sub-block: static shifts on the leading axes, the
-        # per-point one-hot select broadcasts over lanes
+        # per-point one-hot select broadcasts over the K axis
         rows = None
         for i in range(D2 + 1):
             t = jnp.where(dy_i[None, None, :] == i,
@@ -367,8 +361,8 @@ def _corr_tables(blk_b: jnp.ndarray, t: jnp.ndarray, n_off: int, w: int,
     template: out[o1, o2, k] = sum_s blk_b[o1+s1, o2+s2, k] * t[s1, s2, k].
 
     use_conv realizes it as ONE depthwise (feature_group_count=K)
-    correlation; otherwise as n_off^2 static slice-multiply-reduces (the
-    two lower differently on TPU — A/B'd bench-level)."""
+    correlation; otherwise as n_off^2 static slice-multiply-reduces
+    (same math, two lowerings)."""
     K = blk_b.shape[-1]
     if use_conv:
         lhs = jnp.moveaxis(blk_b, -1, 0)[None]            # (1, K, Bb, Bb)
@@ -390,9 +384,9 @@ def _corr_tables(blk_b: jnp.ndarray, t: jnp.ndarray, n_off: int, w: int,
 
 
 def _lut_bilinear(C: jnp.ndarray, dy, dx, fy, fx, n_off: int):
-    """Per-lane bilinear lookup into a (n_off, n_off, K) table at integer
+    """Per-point bilinear lookup into a (n_off, n_off, K) table at integer
     offsets (dy, dx) in [0, n_off-2] with fractions (fy, fx) — one-hot
-    select-sums over the tiny leading axes (pure lane-parallel VPU)."""
+    select-sums over the tiny leading axes (elementwise over K)."""
     top = None
     bot = None
     for i in range(n_off - 1):
@@ -424,7 +418,7 @@ def _lk_level_batched_corr(pa, pb, pgx, pgy, pt_l, guess, cfg: FlowConfig,
     subpixel offset are bilinear interpolations of the integer-offset
     correlation tables corr_g(o) = sum_s blk_b[o+s] g[s]. The tables are
     built ONCE per level (the only O(w^2) work); each iteration is then a
-    tiny per-lane table lookup + 2x2 solve. Early exit: the masked
+    tiny per-point table lookup + 2x2 solve. Early exit: the masked
     updates already freeze converged points, so a while_loop on
     any(active) terminates early with bit-identical results.
     """
@@ -502,30 +496,12 @@ def _lk_level_batched(pa, pb, pgx, pgy, pt_l, guess, cfg: FlowConfig):
     return track(blks_b, patches, base, guess)
 
 
-def lk_pyramid(img: jnp.ndarray, cfg: FlowConfig, impl: str = "xla",
-               interpret: bool = False):
+def lk_pyramid(img: jnp.ndarray, cfg: FlowConfig):
     """Pyramid + Scharr gradients for one frame — cacheable per frame
     (the pipeline carries the previous frame's tuple in its scan carry so
-    each frame's pyramid is built once, not twice).
-
-    impl="pallas" uses the fused MXU pyr_down + one-pass Scharr kernels
-    (hardware-verified twins) — silently kept on the XLA path when the
-    active backend is CPU, so pallas-tagged configs still run everywhere
-    (Mosaic kernels only compile for real TPUs outside interpret mode)."""
-    import jax as _jax
-    use_pl = (impl == "pallas"
-              and (interpret or _jax.default_backend() != "cpu"))
-    f = img.astype(jnp.float32)
-    if use_pl:
-        from ..kernels.pyramid_pallas import pyr_down as _pd
-        from ..kernels.scharr_pallas import scharr_gradients as _sg
-        pyr = [f]
-        for _ in range(cfg.levels - 1):
-            pyr.append(_pd(pyr[-1], interpret=interpret))
-        grads = [_sg(a, interpret=interpret) for a in pyr]
-    else:
-        pyr = build_pyramid(f, cfg.levels)
-        grads = [scharr_gradients(a) for a in pyr]
+    each frame's pyramid is built once, not twice)."""
+    pyr = build_pyramid(img.astype(jnp.float32), cfg.levels)
+    grads = [scharr_gradients(a) for a in pyr]
     return tuple(pyr), tuple(grads)
 
 

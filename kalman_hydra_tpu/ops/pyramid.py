@@ -49,8 +49,7 @@ def _has_c(img) -> bool:
 def resize_coeffs(n_out: int, n_in: int):
     """Half-pixel-center clamped bilinear coefficients (cv2 INTER_LINEAR):
     returns (i0, i1, frac) numpy arrays of length n_out. Single source of
-    truth shared by the XLA resize below and the band-matrix level-image
-    kernel (kernels/level_image_pallas)."""
+    truth for the resize below."""
     scale = n_in / n_out
     s = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
     i0 = np.clip(np.floor(s), 0, n_in - 1).astype(np.int64)

@@ -1,10 +1,9 @@
 """Bilinear sampling / warping (gather layer).
 
-The TPU-awkward part of the pipeline (SURVEY.md §7 "gather-heavy warping"):
-dense warps are whole-image gathers; track sampling is a tiny K-point
-gather. Both are expressed with `jnp.take`-style advanced indexing so XLA
-lowers them to TPU gathers; the Pallas kernels later specialize the dense
-case with tiled halo loads.
+The gather-heavy part of the pipeline (SURVEY.md §7 "gather-heavy
+warping"): dense warps are whole-image gathers; track sampling is a tiny
+K-point gather. Both are expressed with `jnp.take`-style advanced indexing
+and left to XLA's gather lowering.
 
 Coordinate convention: (x, y) with x = column, matching OpenCV. Samples
 outside the image are clamped to the border pixel.
@@ -87,8 +86,7 @@ def bilinear_sample_rows(planes: jnp.ndarray, h: int, w: int,
     """Bilinear sampling of row-stacked planes: `planes` is (H*W, C) — C
     image planes flattened row-major and stacked on the last axis — so the
     four bilinear corners cost ONE row-gather each instead of C separate
-    gathers (TPU gathers are per-index bound; payload width is nearly
-    free — BASELINE.md warp shootout). Border: clamp.
+    gathers (C-wide rows, a quarter of the index work). Border: clamp.
 
     x, y: float query coordinates of any (matching) shape.
     Returns (*query_shape, C) samples. Single owner of the stacked-plane

@@ -1,16 +1,17 @@
 """Device mesh + data-parallel clip sharding (SURVEY.md §2.2).
 
-The reference is single-process/single-GPU; the TPU build's first-class
-parallelism is clip-batch data parallelism over a v5e-8 slice
+The reference is single-process/single-GPU; this build's first-class
+parallelism is clip-batch data parallelism over the devices of one host
 (BASELINE.json:11): clips are independent, so DP = `NamedSharding` of the
 batch axis over a 1-D `Mesh(("data",))` — XLA emits no collectives in the
 hot loop, only at the optional metric reduction (psum via `jnp.mean` over
-the sharded axis). Spatial (halo-exchange) frame sharding is the designed
-TP analog; see kernels/ notes — not needed at 1080p on one chip.
+the sharded axis). Spatial (halo-exchange) frame sharding is the TP
+analog (parallel/spatial.py) — not needed at 1080p on one device.
 
-Developed against a CPU host faked to 8 devices
-(tests/conftest.py, SURVEY.md §4.4); the axis name and layouts are
-identical on a real v5e-8 slice.
+The GPUs of one host are joined all to all by NVLink, so the mesh is a
+plain 1-D device list with no topology to follow. Tested on a CPU host
+faked to 8 devices (tests/conftest.py, SURVEY.md §4.4) with the same
+axis names and layouts.
 """
 
 from __future__ import annotations
@@ -45,9 +46,8 @@ def _track_batch_jit(clips, cfg: RunConfig, with_history: bool = False,
     over it unmapped (broadcast), matching the replicated sharding the DP
     path uses."""
     if cfg.pair_batch:
-        # pair-batched mode can't ride vmap (the manual-DMA kernels
-        # reject a vmapped batch dim); its multi-clip twin chains every
-        # clip's pairs through shared launches instead (clip_len)
+        # the multi-clip pair-batched twin chains every clip's pairs into
+        # one batch (clip_len) instead of vmapping per clip
         if render_tmpl is not None:
             raise ValueError(
                 "pair_batch does not support the render channel "
@@ -102,15 +102,12 @@ def track_clips_sharded(clips: np.ndarray, cfg: RunConfig,
               else jax.device_put(render_tmpl, NamedSharding(mesh, P())))
 
     if cfg.pair_batch:
-        # pair-batched mode can't ride a vmapped batch dim over the
-        # manual-DMA kernels (same constraint as _track_batch_jit), so the
-        # DP path shard_maps the multi-clip pairflow pipeline: each device
-        # chains its LOCAL clip shard through shared kernel launches
-        # (track_clips_pairflow's clip_len chaining), keeping both the DP
-        # contract (BASELINE.json:11) and the shared-launch contract
-        # (BASELINE.json:10) on the pallas path. RunConfig validation only
-        # constrains ekf.measurement, not the template arg itself — reject
-        # a stray template loudly rather than silently ignoring it.
+        # the DP path shard_maps the multi-clip pairflow pipeline: each
+        # device chains its LOCAL clip shard into one pair batch
+        # (track_clips_pairflow's clip_len chaining). RunConfig
+        # validation only constrains ekf.measurement, not the template
+        # arg itself — reject a stray template loudly rather than
+        # silently ignoring it.
         if render_tmpl is not None:
             raise ValueError(
                 "pair_batch does not support the render channel "
@@ -132,9 +129,9 @@ def _pairflow_sharded_fn(cfg: RunConfig, mesh: Mesh, axis: str,
     """Build (and cache) the jitted shard_map'd pairflow pipeline.
 
     Module-level cache keyed on the static configuration so repeated
-    calls hit the jit trace/executable cache (on this 1-vCPU host every
-    retrace is a 1-100 s XLA compile) — mirrors _track_batch_jit /
-    _track_sharded_jit, which get this for free from jax.jit's own cache.
+    calls hit the jit trace/executable cache instead of retracing —
+    mirrors _track_batch_jit / _track_sharded_jit, which get this for
+    free from jax.jit's own cache.
     """
     def local(clips, seeds=None):
         outs = _pipeline.track_clips_pairflow(clips, cfg, False, seeds)
@@ -150,26 +147,25 @@ def _pairflow_sharded_fn(cfg: RunConfig, mesh: Mesh, axis: str,
         return outs, metrics
 
     metrics_spec = P() if reduce_metrics else None
-    # check_vma=False ONLY for the pallas path: pallas_call outputs carry
-    # no varying-mesh-axes annotation, which the default shard_map check
-    # rejects; the XLA path keeps the replication safety check (same
-    # policy as parallel/spatial.py)
-    vma = cfg.impl != "pallas"
+    # check_vma=False: the EKF scan's initial carry (seeded from frame 0's
+    # corner pool) is built from constants the varying-mesh-axes check
+    # types as replicated, while the scan body's output varies over the
+    # data axis, so the checked scan refuses equal carries. Every value
+    # here is per-device by construction (P(axis) in, P(axis) out).
     if not has_seeds:
         return jax.jit(jax.shard_map(
             lambda c: local(c), mesh=mesh, in_specs=(P(axis),),
-            out_specs=(P(axis), metrics_spec), check_vma=vma))
+            out_specs=(P(axis), metrics_spec), check_vma=False))
     return jax.jit(jax.shard_map(
         local, mesh=mesh, in_specs=(P(axis), P(axis)),
-        out_specs=(P(axis), metrics_spec), check_vma=vma))
+        out_specs=(P(axis), metrics_spec), check_vma=False))
 
 
 def _track_sharded_pairflow(clips_d, cfg: RunConfig, mesh: Mesh, axis: str,
                             seeds_d=None, reduce_metrics: bool = False):
     """DP-sharded pair-batched pipeline: shard_map of the multi-clip
-    pairflow path over the data mesh (one pair-batched kernel launch set
-    per device, clips chained via clip_len — never a vmapped batch dim on
-    the manual-DMA kernels). Metrics (when requested) are pmean-reduced
+    pairflow path over the data mesh (one pair batch per device, clips
+    chained via clip_len). Metrics (when requested) are pmean-reduced
     over the mesh axis — the DP path's only collective."""
     fn = _pairflow_sharded_fn(cfg, mesh, axis, seeds_d is not None,
                               reduce_metrics)

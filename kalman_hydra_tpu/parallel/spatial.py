@@ -4,10 +4,10 @@ this workload).
 
 A frame's rows are sharded across the mesh; every windowed op needs only a
 fixed-width band of neighbor rows, so each stage exchanges halos with
-`lax.ppermute` over ICI instead of gathering the full frame. Use when a
-single frame no longer fits (or saturates) one chip; at 1080p on v5e this
-is optional (SURVEY.md §1.2) but the mechanism is exercised in tests on the
-fake 8-device CPU mesh.
+`lax.ppermute` (NCCL over NVLink on a multi-GPU host) instead of gathering
+the full frame. Use when a single frame no longer fits (or saturates) one
+device; at 1080p it is optional (SURVEY.md §1.2), and the mechanism is
+exercised in tests on a fake 8-device CPU mesh.
 
 Implemented pipeline: spatially-sharded dense pyramidal LK
 (`lk_dense_sharded`) — pyrDown, Scharr gradients, window sums and the
@@ -278,8 +278,7 @@ def _update_matrices_band(R0s, R1s, flow_s, row0, hg: int, D: int):
 
 def farneback_sharded(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
                       mesh: Optional[Mesh] = None,
-                      axis: str = "space", impl: str = "xla",
-                      interpret: bool = False) -> np.ndarray:
+                      axis: str = "space", as_numpy: bool = True):
     """Farneback with the FINEST level row-sharded across the mesh.
 
     Strategy (see module docstring design note): cv2's cvRound pyramid
@@ -293,15 +292,8 @@ def farneback_sharded(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
 
     Requires H % n_devices == 0 and fast_warp > 0 (the warp's displacement
     clamp bounds the halo). Matches the single-device op to float noise
-    away from the warp clamp.
-
-    impl="pallas" composes the production kernels with shard_map: the
-    replicated coarse pass runs the fused Pallas pyramid/polyexp/flow
-    kernels, the per-device band polyexp runs the fused polyexp kernel,
-    and each fine iteration runs the fused flow_iter kernel on the local
-    slab with its GLOBAL row offset (flow_iter's row0/img_h band mode) so
-    border damping matches the unsharded kernel. interpret=True runs the
-    kernels in interpret mode (fake-mesh CPU tests).
+    away from the warp clamp. `as_numpy=False` returns the row-sharded
+    device array instead of a host copy.
     """
     if cfg.fast_warp <= 0:
         raise ValueError("farneback_sharded requires fast_warp > 0 "
@@ -329,11 +321,10 @@ def farneback_sharded(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
         row0 = d * hb                        # global row of band start
 
         # ---- replicated coarse pass (levels >= 1) ----
-        Rs_a = polyexp_pyramid(a_full, cfg, impl=impl, interpret=interpret)
-        Rs_b = polyexp_pyramid(b_full, cfg, impl=impl, interpret=interpret)
+        Rs_a = polyexp_pyramid(a_full, cfg)
+        Rs_b = polyexp_pyramid(b_full, cfg)
         if len(Rs_a) > 1:
-            coarse = farneback_from_pyramids(Rs_a[:-1], Rs_b[:-1], cfg,
-                                             impl=impl, interpret=interpret)
+            coarse = farneback_from_pyramids(Rs_a[:-1], Rs_b[:-1], cfg)
             flow_full = resize_linear(jnp.moveaxis(coarse, -1, 0), hg, wg) \
                 * (1.0 / cfg.pyr_scale)
         else:
@@ -352,19 +343,11 @@ def farneback_sharded(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
         sl_b = lax.dynamic_slice(pb, (row0, 0), (hb + 2 * EPAD, wg))
         n_poly = cfg.poly_n
         dt = jnp.bfloat16 if cfg.bf16_poly else jnp.float32
-        if impl == "pallas":
-            from ..kernels.polyexp_pallas import poly_expansion_planar
-            R0s = poly_expansion_planar(sl_a, n_poly, cfg.poly_sigma,
-                                        out_dtype=dt, interpret=interpret)[
-                :, n_poly:-n_poly, :]               # valid rows band+-RPAD
-            R1s = poly_expansion_planar(sl_b, n_poly, cfg.poly_sigma,
-                                        out_dtype=dt, interpret=interpret)[
-                :, n_poly:-n_poly, :]
-        else:
-            R0s = poly_expansion_p(sl_a, n_poly, cfg.poly_sigma)[
-                :, n_poly:-n_poly, :].astype(dt)
-            R1s = poly_expansion_p(sl_b, n_poly, cfg.poly_sigma)[
-                :, n_poly:-n_poly, :].astype(dt)
+        # valid rows band +- RPAD
+        R0s = poly_expansion_p(sl_a, n_poly, cfg.poly_sigma)[
+            :, n_poly:-n_poly, :].astype(dt)
+        R1s = poly_expansion_p(sl_b, n_poly, cfg.poly_sigma)[
+            :, n_poly:-n_poly, :].astype(dt)
 
         # initial fine flow slab (replicated source -> slice band +- RPAD)
         fp = jnp.pad(flow_full, ((0, 0), (RPAD, RPAD), (0, 0)), mode="edge")
@@ -372,18 +355,10 @@ def farneback_sharded(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
                                    (2, hb + 2 * RPAD, wg))
 
         for _ in range(cfg.iterations):
-            if impl == "pallas":
-                # fused flow_iter on the local slab; row0 - RPAD is the
-                # global image row of slab row 0 (band mode docstring)
-                from ..kernels.flow_iter_pallas import flow_iter
-                new_slab = flow_iter(R0s, R1s, flow_s, cfg.winsize, D,
-                                     cfg.gaussian_win, interpret=interpret,
-                                     row0=row0 - RPAD, img_h=hg)
-            else:
-                Mslab = _update_matrices_band(R0s, R1s, flow_s,
-                                              row0 - RPAD, hg, D)
-                new_slab = update_flow_p(Mslab, cfg.winsize,
-                                         cfg.gaussian_win)
+            # row0 - RPAD is the global image row of slab row 0
+            Mslab = _update_matrices_band(R0s, R1s, flow_s,
+                                          row0 - RPAD, hg, D)
+            new_slab = update_flow_p(Mslab, cfg.winsize, cfg.gaussian_win)
             band = new_slab[:, RPAD:RPAD + hb, :]
             # refresh the halo from neighbors for the next iteration
             ext = halo_exchange(jnp.moveaxis(band, 0, 1), RPAD, axis,
@@ -391,13 +366,9 @@ def farneback_sharded(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
             flow_s = jnp.moveaxis(ext, 1, 0)
         return jnp.moveaxis(flow_s[:, RPAD:RPAD + hb, :], 0, -1)
 
-    # check_vma=False ONLY for the pallas path: pallas_call outputs carry
-    # no varying-mesh-axes annotation, which the default shard_map check
-    # rejects — the data flow is explicitly device-varying by
-    # construction (axis_index). The XLA path keeps the safety check.
     fn = jax.shard_map(block_fn, mesh=mesh, in_specs=(P(), P()),
-                       out_specs=P(axis),
-                       check_vma=(impl != "pallas"))
+                       out_specs=P(axis))
     a = jnp.asarray(prev, jnp.float32)
     b = jnp.asarray(nxt, jnp.float32)
-    return np.asarray(jax.jit(fn)(a, b))
+    out = jax.jit(fn)(a, b)
+    return np.asarray(out) if as_numpy else out

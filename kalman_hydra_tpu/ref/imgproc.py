@@ -1,6 +1,6 @@
 """OpenCV/NumPy oracle: image-processing half.
 
-This is the behavioral contract the TPU ops are tested against
+This is the behavioral contract the device ops are tested against
 (BASELINE.json:5: "bit-level-comparable flow fields ... against the
 OpenCV/NumPy reference"; SURVEY.md §2.3). It deliberately wraps the same
 OpenCV entry points the reference wrapped (`cvtColor`, `pyrDown`,
@@ -8,7 +8,7 @@ OpenCV entry points the reference wrapped (`cvtColor`, `pyrDown`,
 and nothing else — all compute here is C++ OpenCV or plain NumPy, no JAX.
 
 It is also the CPU baseline whose frames/sec sets the 5x throughput bar
-(BASELINE.json:5, BASELINE.md).
+(BASELINE.json:5).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def farneback(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
     """Dense Farneback flow, (H, W, 2) float32, channel 0 = x displacement.
 
     flow0: optional (H, W, 2) initial flow — wraps
-    cv2.OPTFLOW_USE_INITIAL_FLOW (the warm-start surface the TPU path
+    cv2.OPTFLOW_USE_INITIAL_FLOW (the warm-start surface the device path
     mirrors with farneback(..., flow0=...))."""
     flags = cv2.OPTFLOW_FARNEBACK_GAUSSIAN if cfg.gaussian_win else 0
     flow = None
@@ -79,7 +79,7 @@ def lk_dense(prev: np.ndarray, nxt: np.ndarray, cfg: FlowConfig,
     """Dense flow by running pyramidal LK on a regular pixel grid.
 
     The reference's LK usage was sparse; this grid version exists so dense-LK
-    TPU flow (BASELINE.json:7) has an oracle with identical math. O(H*W)
+    device flow (BASELINE.json:7) has an oracle with identical math. O(H*W)
     sparse calls — use small images / stride in tests.
     """
     h, w = prev.shape[:2]

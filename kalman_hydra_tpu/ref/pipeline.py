@@ -3,7 +3,7 @@
 Mirrors the reference driver's hot loop (SURVEY.md §3.1): per frame,
 grayscale -> dense flow -> sample flow at track positions -> EKF
 predict/update -> append trajectory row. This is (a) the parity target for
-the TPU pipeline and (b) the measured CPU baseline that defines the 5x
+the device pipeline and (b) the measured CPU baseline that defines the 5x
 throughput bar (BASELINE.json:5).
 """
 

@@ -1,8 +1,7 @@
 """Debug / sanitizer hooks (SURVEY.md §5 "race detection / sanitizers").
 
-JAX is functional, so data races are confined to Pallas kernels — their
-sanitizer is `interpret=True` (exercised by tests/unit/test_kernels.py).
-This module adds the numeric sanitizers: a NaN-trapping context and a
+JAX is functional and this package writes no hand-made kernels, so there
+are no data races to sanitize. This module adds the numeric sanitizers: a NaN-trapping context and a
 checkify'd EKF update that turns non-finite innovations / non-PSD
 innovation covariances into reported errors instead of silent garbage.
 """

@@ -1,7 +1,7 @@
 """Tracing / profiling hooks (SURVEY.md §5).
 
 `trace(dir)` wraps a region in `jax.profiler.trace` (Perfetto/XProf —
-shows Pallas kernels and H2D streams); `cost(fn, *args)` reports XLA's
+shows device kernels and H2D streams); `cost(fn, *args)` reports XLA's
 static cost analysis for a jitted callable (per-bench kernel cost,
 SURVEY.md §5 "Tracing / profiling").
 """

@@ -1,6 +1,6 @@
 // Native frame loader: threaded video decode into a preallocated ring.
 //
-// TPU-native equivalent of the reference's IO layer hot path
+// Native equivalent of the reference's IO layer hot path
 // (SURVEY.md §2.1 #8): the reference decoded frames synchronously inside
 // the Python driver loop; here a C++ worker thread decodes ahead into a
 // bounded ring of reusable BGR buffers so host decode overlaps device

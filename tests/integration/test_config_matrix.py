@@ -2,7 +2,7 @@
 clip end-to-end without crashing and with finite outputs.
 
 Motivated by a round-2 regression class: individual features all worked,
-but combinations (bf16_poly + pallas + exact warp; lag + chunk; adaptive_q
+but combinations (bf16_poly + exact warp; lag + chunk; adaptive_q
 + lk_sparse) broke or silently degraded. This matrix keeps the
 combination space honest."""
 

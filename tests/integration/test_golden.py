@@ -1,6 +1,6 @@
 """Golden-file regression tests (SURVEY.md §4.5): oracle outputs are
 committed; both the oracle (drift detection across cv2 versions) and the
-TPU path (regression detection across our changes) are pinned to them."""
+device path (regression detection across our changes) are pinned to them."""
 
 import os
 
@@ -29,7 +29,7 @@ def test_oracle_still_matches_golden_flow(golden):
     assert np.abs(flow - golden["farneback_flow"]).max() < 1e-4
 
 
-def test_tpu_flow_matches_golden(golden):
+def test_device_flow_matches_golden(golden):
     got = np.asarray(farneback(
         jnp.asarray(golden["pair_a"].astype(np.float32)),
         jnp.asarray(golden["pair_b"].astype(np.float32)),
@@ -39,7 +39,7 @@ def test_tpu_flow_matches_golden(golden):
     assert epe[8:-8, 8:-8].mean() < 0.01
 
 
-def test_tpu_tracks_match_golden(golden):
+def test_device_tracks_match_golden(golden):
     cfg = RunConfig(flow=FlowConfig(levels=3),
                     tracks=TrackConfig(num_tracks=8, reinit=False))
     tr = pl.track_clip(golden["clip_frames"], cfg,

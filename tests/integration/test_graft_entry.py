@@ -1,13 +1,14 @@
 """Driver entry points: single-chip jit compile + multi-chip DP dry run
 (the same paths the external driver exercises)."""
 
+import os
 import sys
 
 import numpy as np
 import jax
-import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
 
 
 def test_entry_compiles_and_runs():

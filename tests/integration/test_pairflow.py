@@ -1,11 +1,10 @@
 """Pair-batched pipeline (RunConfig.pair_batch) parity vs the per-frame
-scan: the batched kernels (flow_iter_pairs, poly_expansion_planar_batch,
-coarse_polyexp_fused_batch) must reproduce the single-pair path per pair,
-and track_arrays_pairflow must reproduce track_arrays trajectories.
+scan: the batched front end (polyexp_pyramid_batch,
+farneback_pairs_from_pyramids) must reproduce the single-pair path per
+pair, and track_arrays_pairflow must reproduce track_arrays
+trajectories."""
 
-Launch amortization is a TPU-side property (BASELINE.md round-3
-session-3); these tests pin the semantics on the CPU backend (XLA path
-exactly, Pallas path in interpret mode)."""
+import dataclasses
 
 import numpy as np
 import jax
@@ -16,6 +15,7 @@ from kalman_hydra_tpu.config import (EkfConfig, FlowConfig, RunConfig,
                                      SmoothConfig, TrackConfig)
 from kalman_hydra_tpu.io.synthetic import moving_blob_clip
 from kalman_hydra_tpu import pipeline as pl
+from kalman_hydra_tpu.ops import farneback as fb_ops
 
 
 def _clip(t=6, h=96, w=128):
@@ -32,73 +32,65 @@ def _grays(frames):
 FB = FlowConfig(method="farneback", levels=3, winsize=9, iterations=2,
                 poly_n=5, poly_sigma=1.1)
 
+# the two warp formulations of the Farneback iteration: exact bilinear
+# gather (fast_warp=0) and the clamped select-sum warp (fast_warp=4)
+MODES = {"xla": {}, "xla_fast_warp": {"fast_warp": 4}}
 
-class TestBatchedKernels:
-    def test_polyexp_batch_matches_single(self):
-        from kalman_hydra_tpu.kernels.polyexp_pallas import (
-            poly_expansion_planar, poly_expansion_planar_batch)
-        grays = _grays(_clip(t=3))
-        one = jnp.stack([poly_expansion_planar(g, 5, 1.1, interpret=True)
-                         for g in grays])
-        bat = poly_expansion_planar_batch(grays, 5, 1.1, interpret=True)
-        # identical math; XLA:CPU fuses the two programs' FMAs differently
-        # (coefficients are O(1e2), so 1e-3 abs ~ 1e-5 relative)
-        np.testing.assert_allclose(np.asarray(bat), np.asarray(one),
-                                   atol=1e-3)
 
-    def test_coarse_fused_batch_matches_single(self):
-        from kalman_hydra_tpu.kernels.level_image_pallas import (
-            coarse_polyexp_fused, coarse_polyexp_fused_batch)
+def _flow_cfg(mode):
+    return dataclasses.replace(FB, **MODES[mode])
+
+
+class TestBatchedFrontEnd:
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_polyexp_batch_matches_single(self, bf16):
+        cfg = dataclasses.replace(FB, bf16_poly=bf16)
         grays = _grays(_clip(t=3))
-        bat = coarse_polyexp_fused_batch(grays, 3, 0.5, 5, 1.1,
-                                         interpret=True)
+        bat = fb_ops.polyexp_pyramid_batch(grays, cfg)
         for n in range(grays.shape[0]):
-            one = coarse_polyexp_fused(grays[n], 3, 0.5, 5, 1.1,
-                                       interpret=True)
+            one = fb_ops.polyexp_pyramid(grays[n], cfg)
+            assert len(one) == len(bat)
             for lvl, o in enumerate(one):
-                np.testing.assert_allclose(np.asarray(bat[lvl][n]),
-                                           np.asarray(o), atol=1e-3)
+                assert bat[lvl][n].dtype == o.dtype
+                # identical math; XLA:CPU fuses the two programs' FMAs
+                # differently (coefficients are O(1e2), so 1e-3 abs ~
+                # 1e-5 relative; bf16 storage rounds at ~4e-3 relative)
+                np.testing.assert_allclose(
+                    np.asarray(bat[lvl][n], np.float32),
+                    np.asarray(o, np.float32),
+                    atol=1.0 if bf16 else 1e-3)
 
-    @pytest.mark.parametrize("shift_skip", [False, True])
-    def test_flow_iter_pairs_matches_flow_iter(self, shift_skip, rng):
-        from kalman_hydra_tpu.kernels.flow_iter_pallas import (
-            flow_iter, flow_iter_pairs, prep_planes)
-        h, w, D, win = 64, 96, 4, 9
-        nF = 4
-        R = jnp.asarray(rng.normal(size=(nF, 5, h, w)).astype(np.float32))
-        fl = jnp.asarray(
-            (rng.normal(size=(nF - 1, 2, h, w)) * 2.5).astype(np.float32))
-        Rp = jax.vmap(lambda r: prep_planes(r, win, D, tile_h=32))(R)
-        got = flow_iter_pairs(Rp, fl, win, D, (h, w), tile_h=32,
-                              shift_skip=shift_skip, interpret=True)
-        for b in range(nF - 1):
-            want = flow_iter(Rp[b], Rp[b + 1], fl[b], win, D, tile_h=32,
-                             shift_skip=shift_skip, img_hw=(h, w),
-                             interpret=True)
+    @pytest.mark.parametrize("mode", list(MODES))
+    def test_pairs_match_single_pair(self, mode):
+        cfg = _flow_cfg(mode)
+        grays = _grays(_clip(t=4))
+        Rs = fb_ops.polyexp_pyramid_batch(grays, cfg)
+        got = fb_ops.farneback_pairs_from_pyramids(Rs, cfg)
+        assert got.shape == (3,) + grays.shape[1:] + (2,)
+        for b in range(3):
+            want = fb_ops.farneback_from_pyramids(
+                tuple(R[b] for R in Rs), tuple(R[b + 1] for R in Rs), cfg)
             np.testing.assert_allclose(np.asarray(got[b]),
-                                       np.asarray(want), atol=1e-5)
+                                       np.asarray(want), atol=1e-4)
 
-    def test_flow_iter_pairs_multi_clip_chaining(self, rng):
+    def test_pairs_multi_clip_chaining(self):
         """clip_len=T chains C clips' frames: pair b must read frames
         (p, p+1) with p = b + b // (T-1) — no pair straddles a clip
         boundary."""
-        from kalman_hydra_tpu.kernels.flow_iter_pallas import (
-            flow_iter, flow_iter_pairs, prep_planes)
-        h, w, D, win, T, C = 64, 96, 3, 9, 3, 2
-        R = jnp.asarray(
-            rng.normal(size=(C * T, 5, h, w)).astype(np.float32))
+        T, C = 3, 2
+        cfg = _flow_cfg("xla_fast_warp")
+        grays = jnp.concatenate([_grays(_clip(t=T)),
+                                 _grays(_clip(t=T)[::-1].copy())])
+        Rs = fb_ops.polyexp_pyramid_batch(grays, cfg)
+        got = fb_ops.farneback_pairs_from_pyramids(Rs, cfg, clip_len=T)
         B = C * (T - 1)
-        fl = jnp.asarray(
-            (rng.normal(size=(B, 2, h, w)) * 2.0).astype(np.float32))
-        Rp = jax.vmap(lambda r: prep_planes(r, win, D, tile_h=32))(R)
-        got = flow_iter_pairs(Rp, fl, win, D, (h, w), tile_h=32,
-                              clip_len=T, interpret=True)
+        assert got.shape[0] == B
         for b in range(B):
             p = b + b // (T - 1)
-            want = flow_iter(Rp[p], Rp[p + 1], fl[b], win, D, tile_h=32,
-                             img_hw=(h, w), interpret=True)
+            want = fb_ops.farneback_from_pyramids(
+                tuple(R[p] for R in Rs), tuple(R[p + 1] for R in Rs), cfg)
             np.testing.assert_allclose(np.asarray(got[b]),
-                                       np.asarray(want), atol=1e-5)
+                                       np.asarray(want), atol=1e-4)
 
 
 class TestPairflowPipeline:
@@ -112,19 +104,11 @@ class TestPairflowPipeline:
                      axis=-1).reshape(-1, 2)[:k]
         return jnp.asarray(g.astype(np.float32))
 
-    @pytest.mark.parametrize("impl", ["xla", "pallas"])
-    def test_matches_scan_farneback(self, impl):
+    @pytest.mark.parametrize("mode", list(MODES))
+    def test_matches_scan_farneback(self, mode):
         frames = _clip()
-        base = RunConfig(flow=FB, ekf=EkfConfig(state_dim=4),
-                         tracks=TrackConfig(num_tracks=6),
-                         impl=impl,
-                         pallas_interpret=(impl == "pallas"))
-        cfgs = dict(fast_warp=4, bf16_poly=False) \
-            if impl == "pallas" else {}
-        if cfgs:
-            import dataclasses
-            base = base.replace(
-                flow=dataclasses.replace(base.flow, **cfgs))
+        base = RunConfig(flow=_flow_cfg(mode), ekf=EkfConfig(state_dim=4),
+                         tracks=TrackConfig(num_tracks=6))
         seeds = self._seeds()
         ref = self._run(base, frames, seeds)
         got = self._run(base.replace(pair_batch=True), frames, seeds)
@@ -157,20 +141,14 @@ class TestPairflowPipeline:
                                    atol=2e-4)
         np.testing.assert_array_equal(got["track_id"], ref["track_id"])
 
-    @pytest.mark.parametrize("impl", ["xla", "pallas"])
-    def test_multi_clip_matches_per_clip(self, impl):
+    @pytest.mark.parametrize("mode", list(MODES))
+    def test_multi_clip_matches_per_clip(self, mode):
         """track_clips_pairflow (BASELINE.json:10 multi-clip batch): all
-        clips' pairs share each launch via clip_len chaining; per-clip
+        clips' pairs form one batch via clip_len chaining; per-clip
         trajectories match the single-clip pair pipeline."""
         clips = np.stack([_clip(), _clip()[::-1].copy()])
-        cfg = RunConfig(flow=FB, ekf=EkfConfig(state_dim=4),
-                        tracks=TrackConfig(num_tracks=6),
-                        impl=impl, pair_batch=True,
-                        pallas_interpret=(impl == "pallas"))
-        if impl == "pallas":
-            import dataclasses
-            cfg = cfg.replace(flow=dataclasses.replace(
-                cfg.flow, fast_warp=4, bf16_poly=False))
+        cfg = RunConfig(flow=_flow_cfg(mode), ekf=EkfConfig(state_dim=4),
+                        tracks=TrackConfig(num_tracks=6), pair_batch=True)
         seeds = self._seeds()
         got = jax.device_get(pl.track_clips_pairflow(
             jnp.asarray(clips), cfg, seeds=seeds))
@@ -180,18 +158,13 @@ class TestPairflowPipeline:
                                        atol=2e-4)
             np.testing.assert_array_equal(got["alive"][b], ref["alive"])
 
-    @pytest.mark.parametrize("impl", ["xla", "pallas"])
-    def test_flow_sequence_matches_scan(self, impl):
+    @pytest.mark.parametrize("mode", list(MODES))
+    def test_flow_sequence_matches_scan(self, mode):
         """flow_sequence (config 2's contract path, incl. the per-pixel
         EKF smoothing stage) through the pair-batched front end matches
         the per-frame scan."""
         frames = jnp.asarray(_clip())
-        base = RunConfig(flow=FB, impl=impl,
-                         pallas_interpret=(impl == "pallas"))
-        if impl == "pallas":
-            import dataclasses
-            base = base.replace(flow=dataclasses.replace(
-                base.flow, fast_warp=4, bf16_poly=False))
+        base = RunConfig(flow=_flow_cfg(mode))
         for smooth in (False, True):
             ref = np.asarray(pl.flow_sequence(frames, base, smooth=smooth))
             got = np.asarray(pl.flow_sequence(

@@ -78,43 +78,37 @@ def test_sharded_farneback_matches_single_device(pair128, n_dev):
 
 
 @pytest.mark.parametrize("n_dev", [2, 8])
-def test_sharded_farneback_pallas_matches_single_pallas(pair128, n_dev):
-    """Pallas kernels composed with shard_map (round-2 verdict item 3):
-    the band path runs the fused polyexp + flow_iter kernels per device
-    (flow_iter's row0/img_h band mode carries the global row offset into
-    the kernel's border damping). Interior parity vs the single-device
-    pallas run is float noise; the global border rows carry the same
-    band-vs-single semantics difference as the XLA path (<0.1 px)."""
+def test_sharded_farneback_winsize13_matches_single(pair128, n_dev):
+    """A 13-px window on the band path (halo sizes follow winsize): each
+    band's global row offset reaches the border damping, so interior
+    parity vs the single-device run is float noise; the global border
+    rows carry the band-vs-single semantics difference (<0.1 px)."""
     from kalman_hydra_tpu.ops.farneback import farneback
     from kalman_hydra_tpu.parallel.spatial import farneback_sharded
     import jax.numpy as jnp
     a, b, _ = pair128
-    cfg = FlowConfig(levels=3, fast_warp=8)
-    ref = np.asarray(jax.jit(
-        lambda x, y: farneback(x, y, cfg, impl="pallas", interpret=True))(
+    cfg = FlowConfig(levels=3, fast_warp=8, winsize=13)
+    ref = np.asarray(jax.jit(lambda x, y: farneback(x, y, cfg))(
         jnp.asarray(a), jnp.asarray(b)))
     mesh = Mesh(np.array(jax.devices()[:n_dev]), ("space",))
-    got = farneback_sharded(a, b, cfg, mesh=mesh, impl="pallas",
-                            interpret=True)
+    got = farneback_sharded(a, b, cfg, mesh=mesh)
     d = np.abs(got - ref)
     assert d[8:-8, 8:-8].max() < 5e-3
     assert d.max() < 0.1
 
 
-def test_sharded_farneback_pallas_bf16(pair128):
-    """bf16 plane storage (the production bench configuration) composes
-    with the sharded pallas band path."""
+def test_sharded_farneback_bf16(pair128):
+    """bf16 plane storage (the throughput configuration) composes with
+    the sharded band path."""
     from kalman_hydra_tpu.ops.farneback import farneback
     from kalman_hydra_tpu.parallel.spatial import farneback_sharded
     import jax.numpy as jnp
     a, b, _ = pair128
     cfg = FlowConfig(levels=2, fast_warp=8, bf16_poly=True)
-    ref = np.asarray(jax.jit(
-        lambda x, y: farneback(x, y, cfg, impl="pallas", interpret=True))(
+    ref = np.asarray(jax.jit(lambda x, y: farneback(x, y, cfg))(
         jnp.asarray(a), jnp.asarray(b)))
     mesh = Mesh(np.array(jax.devices()[:2]), ("space",))
-    got = farneback_sharded(a, b, cfg, mesh=mesh, impl="pallas",
-                            interpret=True)
+    got = farneback_sharded(a, b, cfg, mesh=mesh)
     d = np.abs(got - ref)
     assert d[8:-8, 8:-8].max() < 0.05      # bf16 storage noise
     assert d.max() < 0.15

@@ -97,9 +97,8 @@ def test_runconfig_json_roundtrip():
 
 
 def test_runconfig_json_ignores_removed_fields():
-    """Old run artifacts carrying since-deleted perf-knob fields (the A/B
-    ledger retires knobs — BASELINE.md) must load with a warning, not
-    crash."""
+    """Old run artifacts carrying since-deleted perf-knob fields
+    (measurements retire knobs) must load with a warning, not crash."""
     import json
     import warnings
     from kalman_hydra_tpu.config import RunConfig

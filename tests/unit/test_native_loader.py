@@ -8,9 +8,16 @@ from kalman_hydra_tpu.io.synthetic import moving_blob_clip
 from kalman_hydra_tpu.io.video import write_video, FrameStream
 
 
-@pytest.mark.skipif(not native_loader.available(),
-                    reason="native loader not built")
-def test_native_decode_matches_python(tmp_path):
+@pytest.fixture()
+def native():
+    """The loader, built on first use (decided here, not at import)."""
+    if not native_loader.available():
+        pytest.skip(f"native loader unavailable: "
+                    f"{native_loader._build_error}")
+    return native_loader
+
+
+def test_native_decode_matches_python(tmp_path, native):
     frames, _ = moving_blob_clip(num_frames=6, height=64, width=64, seed=0)
     path = str(tmp_path / "clip.avi")
     import cv2
@@ -31,9 +38,7 @@ def test_native_decode_matches_python(tmp_path):
     assert np.abs(nat_frames.astype(int) - py_frames.astype(int)).mean() < 2.0
 
 
-@pytest.mark.skipif(not native_loader.available(),
-                    reason="native loader not built")
-def test_native_loader_feeds_pipeline(tmp_path):
+def test_native_loader_feeds_pipeline(tmp_path, native):
     frames, _ = moving_blob_clip(num_frames=5, height=64, width=64, seed=1)
     path = str(tmp_path / "clip.avi")
     import cv2
@@ -54,9 +59,7 @@ def test_native_loader_feeds_pipeline(tmp_path):
     assert np.isfinite(tr.positions).all()
 
 
-@pytest.mark.skipif(not native_loader.available(),
-                    reason="native loader not built")
-def test_native_gray_mode_bit_exact(tmp_path):
+def test_native_gray_mode_bit_exact(tmp_path, native):
     """gray=True must be bit-identical to the device grayscale
     (ops.color.grayscale_u8 / cv2 fixed-point BT.601) on the SAME decoded
     BGR frames — and feed the pipeline as (H, W) u8."""
@@ -102,3 +105,16 @@ def test_framestream_gray_matches_cvtcolor(tmp_path):
     gray = FrameStream(path, gray=True).read_all()
     ref = np.stack([cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) for f in bgr])
     np.testing.assert_array_equal(gray, ref)
+
+
+def test_missing_opencv_headers_fail_clearly(tmp_path, monkeypatch):
+    """Without the OpenCV headers the build is not attempted and opening
+    a stream says why."""
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.setattr(native_loader, "_LIB_PATH",
+                        str(tmp_path / "libframeloader.so"))
+    monkeypatch.setattr(native_loader, "OPENCV_INCLUDE",
+                        str(tmp_path / "no-opencv4"))
+    assert not native_loader.available()
+    with pytest.raises(RuntimeError, match="OpenCV 4 development headers"):
+        native_loader.NativeFrameStream(str(tmp_path / "clip.avi"))

@@ -85,7 +85,7 @@ def test_oracle_pipeline_tracks_blob(blob_clip):
     tr = rp.track_clip(frames, cfg, seeds=truth.positions[0])
     err = np.linalg.norm(tr.positions[-1] - truth.positions[-1], axis=-1)
     # flow-chained tracking dead-reckons: a small steady-state lag vs truth
-    # is inherent; parity between TPU and oracle is tested much tighter.
+    # is inherent; parity between the device path and oracle is tested much tighter.
     assert err.mean() < 3.5
 
 
